@@ -172,7 +172,7 @@ def main(argv=None):
     slam = build_system(args)
     node = SlamNode(slam, args.sensor, imu_freq=float(slam.cfg.imu_freq))
 
-    rospy.init_node("orb_slam3_tpu", anonymous=True)
+    rospy.init_node("orb_slam3", anonymous=True)
     if args.sensor.endswith("-inertial"):
         rospy.Subscriber(args.imu, Imu, node.on_imu, queue_size=1000)
     if args.sensor.startswith("stereo"):

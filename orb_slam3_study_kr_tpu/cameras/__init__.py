@@ -1,7 +1,7 @@
 """Camera models: pinhole (+ radial-tangential distortion) and
 Kannala-Brandt8 fisheye.
 
-TPU-native replacement for the reference's polymorphic GeometricCamera
+Array-program replacement for the reference's polymorphic GeometricCamera
 hierarchy (/root/reference/include/CameraModels/GeometricCamera.h:61-86,
 Pinhole.h, KannalaBrandt8.h).  Instead of C++ virtual dispatch, a camera is a
 small pytree (`Camera`) whose `kind` is static metadata, so jit traces the

@@ -1,7 +1,7 @@
 """Monocular two-view initialization: batched RANSAC over homography and
 fundamental hypotheses, model selection, and motion recovery.
 
-TPU-first re-design of /root/reference/src/TwoViewReconstruction.cc: instead
+Batched re-design of /root/reference/src/TwoViewReconstruction.cc: instead
 of 200 sequential RANSAC iterations each touching 8 points, all 200
 hypotheses are built with one batched SVD and scored against all N matches
 as one (T, N) computation; the 4 essential / 8 Faugeras homography motion

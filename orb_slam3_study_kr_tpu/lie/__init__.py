@@ -1,6 +1,6 @@
 """Batched Lie-group library (SO3 / SE3 / Sim3) in pure jax.numpy.
 
-TPU-native replacement for the reference's header-only Sophus dependency
+Replacement for the reference's header-only Sophus dependency
 (/root/reference/Thirdparty/Sophus: se3.hpp, so3.hpp, sim3.hpp) and the IMU
 Lie helpers (/root/reference/include/ImuTypes.h:254-260).
 

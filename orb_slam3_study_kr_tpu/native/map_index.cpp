@@ -2,7 +2,7 @@
 //
 // The reference keeps its covisibility graph and observation maps in
 // mutex-guarded pointer structures updated incrementally
-// (KeyFrame::UpdateConnections, MapPoint::mObservations).  The TPU engine
+// (KeyFrame::UpdateConnections, MapPoint::mObservations).  This engine
 // recomputes them from the SoA binding table kf_kp_lm on demand; these
 // kernels are the C++ runtime part of that design — called once or more per
 // frame by the orchestrator, they walk the (max_kf, max_kp) int32 table

@@ -4,7 +4,7 @@ Replaces Frame::ComputeStereoFishEyeMatches (/root/reference/src/
 Frame.cc:1131) and KannalaBrandt8::TriangulateMatches
 (/root/reference/include/CameraModels/KannalaBrandt8.h:86): rectification
 is impossible for 195-degree lenses, so left/right keypoints are matched
-by descriptor (the reference walks shared BoW nodes; on the MXU the full
+by descriptor (the reference walks shared BoW nodes; as one matmul the full
 Hamming matrix is cheaper), pre-gated by the epipolar plane of the known
 extrinsic, triangulated from bearing rays, and accepted by two-sided
 reprojection chi2 — exactly the reference's <=1e-1 sigma-scaled check.

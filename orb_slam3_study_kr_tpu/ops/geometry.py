@@ -45,7 +45,7 @@ def triangulate_rays(b1, b2, R1w, t1w, R2w, t2w):
     degenerates for rays near or beyond 90 degrees off-axis), this builds
     the full cross-product constraint [b]_x (R X + t) = 0 per camera —
     3 rows of rank 2 each, valid for any bearing direction — and solves the
-    stacked (6, 4) homogeneous system by SVD.  This is the TPU-native
+    stacked (6, 4) homogeneous system by SVD.  This is the batched
     equivalent of KannalaBrandt8::TriangulateMatches' DLT
     (/root/reference/src/CameraModels/KannalaBrandt8.cpp:Triangulate).
 

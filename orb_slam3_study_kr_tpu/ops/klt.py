@@ -11,7 +11,7 @@ additive Lucas-Kanade, translation + gain/bias invariance via zero-mean
 gain-fitted residuals).
 
 Everything is fixed-shape and batched over matches: N keypoints x (2r+1)^2
-window samples x fixed GN iterations — pure VPU work under one jit.
+window samples x fixed GN iterations — pure elementwise work under one jit.
 
 Conventions match ops/orb.py gather_oriented_patches: the canonical patch
 grid (gy, gx) maps to image coords p = c + R(a) @ (gx, gy) with
@@ -102,9 +102,8 @@ def klt_refine(pyr_stack, level_wh, uv_l0, level, angle, tmpl, mask,
     # Bilinear sampling as separable hat-weight contractions instead of
     # per-element gathers: sample(sp, px, py) = A @ sp @ B with
     # A[p, s] = hat(py[p] - s), B[p, t] = hat(px[p] - t) — two batched
-    # (P*P, S) x (S, S) matmuls per evaluation.  Gathers serialize on the
-    # TPU; these contractions run on the MXU (measured ~20x faster at
-    # N=1000).  The central-difference gradients become shifted-hat weight
+    # (P*P, S) x (S, S) matmuls per evaluation, in place of per-element gathers.
+    # The central-difference gradients become shifted-hat weight
     # matrices, numerically identical to resampling at px +- 1.
     s_iota = jnp.arange(_S, dtype=jnp.float32)
 

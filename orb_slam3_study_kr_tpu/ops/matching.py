@@ -1,4 +1,4 @@
-"""Binary-descriptor matching: Hamming distance matrices on the MXU plus the
+"""Binary-descriptor matching: Hamming distance matrices as matmuls plus the
 reference's gate stack (distance thresholds, Lowe ratio, rotation-consistency
 histogram, windowed search masks, mutual-best checks).
 
@@ -9,7 +9,7 @@ and a whole (N1, N2) Hamming matrix is one bf16 matmul:
 
     hamming(a, b) = popcount(a XOR b) = sum(a) + sum(b) - 2 a.b
 
-so the 256-wide inner product lands on the systolic array, and every search
+so the 256-wide inner product is one matrix product, and every search
 window / scale / rotation gate becomes a mask added to the distance matrix.
 
 Thresholds mirror ORBmatcher.cc:35-37: TH_HIGH = 100, TH_LOW = 50,

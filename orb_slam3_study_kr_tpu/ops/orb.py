@@ -1,12 +1,12 @@
 """ORB feature extraction as batched fixed-shape JAX.
 
-TPU-first re-design of /root/reference/src/ORBextractor.cc.  Where the
+Batched re-design of /root/reference/src/ORBextractor.cc.  Where the
 reference walks 35-px cells sequentially calling OpenCV FAST and then
 balances keypoints with a recursive quad-tree (DistributeOctTree,
 ORBextractor.cc:877), this implementation computes dense per-pixel FAST
-scores for the whole level in one vectorized pass (16 static rolls feed the
-VPU), applies the same two-threshold fallback per cell as a masked reduce,
-does 3x3 NMS, and approximates the quad-tree spatial balancing with
+scores for the whole level in one vectorized elementwise pass (16 static
+rolls), applies the same two-threshold fallback per cell as a masked
+reduce, does 3x3 NMS, and approximates the quad-tree spatial balancing with
 per-cell top-k followed by global top-quota selection — behavior match
 (spatially spread, response-ranked keypoints), not algorithm match.
 
@@ -214,11 +214,11 @@ def select_keypoints(score20, score7, quota, cell, topk):
 
 def subpixel_offset_maps(score_raw):
     """Dense parabolic 3x3 sub-pixel offset maps (dx, dy) of the (pre-NMS)
-    score map — pure elementwise VPU work; per-keypoint offsets are then
+    score map — pure elementwise work; per-keypoint offsets are then
     two N-element gathers instead of five scalar gathers per keypoint.
 
     The reference keeps integer FAST corners; the ~0.3 px quantization that
-    costs mono accuracy is cheap to remove on TPU."""
+    costs mono accuracy is cheap to remove here."""
     c = score_raw
     l = jnp.roll(c, 1, axis=1)
     r = jnp.roll(c, -1, axis=1)
@@ -327,7 +327,7 @@ def _gather_superpatches(stack, lvl, yi, xi):
 
 def _orientation_from_patches(raw_sp):
     """Intensity-centroid angle from integer-centered superpatches
-    (IC_Angle, ORBextractor.cc:76) — batched VPU reduces, no gathers."""
+    (IC_Angle, ORBextractor.cc:76) — batched reduces, no gathers."""
     coords = jnp.arange(-SUPER_R, SUPER_R + 1, dtype=jnp.float32)
     rr = coords[:, None] ** 2 + coords[None, :] ** 2
     disc = (rr <= HALF_PATCH * HALF_PATCH).astype(jnp.float32)
@@ -339,8 +339,7 @@ def _orientation_from_patches(raw_sp):
 def _sample_rotated(blur_sp, offs_y, offs_x, fy, fx, angles):
     """Bilinear samples of each superpatch at its keypoint-rotated offsets
     (+ the sub-pixel center fraction), as separable hat-weight
-    contractions on the MXU instead of per-element gathers (the ops/klt.py
-    trick — gathers serialize on TPU).
+    contractions instead of per-element gathers (as in ops/klt.py).
 
     offs_y/offs_x: (P,) canonical offsets; returns (N, P) samples."""
     ca = jnp.cos(angles)[:, None]
@@ -355,7 +354,7 @@ def _sample_rotated(blur_sp, offs_y, offs_x, fy, fx, angles):
 
 
 def _descriptors_from_patches(blur_sp, fy, fx, angles):
-    """(N, 256) uint8 rotated-BRIEF bits via one batched MXU sampling of
+    """(N, 256) uint8 rotated-BRIEF bits via one batched matmul sampling of
     the 512 pattern points (replaces the per-keypoint rounded-offset
     gathers; sampling is bilinear rather than nearest — descriptors stay
     self-consistent because matching uses this same extractor)."""
@@ -435,35 +434,24 @@ def build_pyramid(img, cfg: OrbConfig):
     return levels
 
 
-def extract_level(img_l, quota, cfg: OrbConfig, use_pallas: bool = False):
+def _dense_stage(img_l, th_min, th_ini, margin):
+    """FAST score, border-masked 3x3 NMS at both thresholds, 7x7 blur."""
+    s_raw = fast_score_map(img_l, th_min)
+    s20 = jnp.where(s_raw > th_ini, s_raw, 0.0)
+    border = _border_mask(*img_l.shape, margin)
+    s20 = jnp.where(border, _nms3x3(s20), 0.0)
+    s7 = jnp.where(border, _nms3x3(s_raw), 0.0)
+    return s_raw, s20, s7, gaussian_blur7(img_l)
+
+
+def extract_level(img_l, quota, cfg: OrbConfig):
     """Dense per-level stage: FAST score, two-threshold NMS, cell select,
     sub-pixel offsets (+ the level's 7x7 blur).  Per-keypoint work
     (orientation/descriptor/patch) happens once, batched across ALL
-    levels, in extract_orb.
-
-    With use_pallas the score/NMS/blur products come from ONE fused
-    VMEM-resident kernel pass (ops/pallas_fast.py) instead of separate
-    XLA fusions over HBM."""
-    H, W = img_l.shape
-    if use_pallas:
-        from orb_slam3_study_kr_tpu.ops.pallas_fast import (
-            fast_nms_blur_pallas)
-        Wp = -(-W // 128) * 128
-        imgp = jnp.pad(img_l, ((0, 0), (0, Wp - W)))
-        s_raw, s20n, s7n, blurred = fast_nms_blur_pallas(
-            imgp, float(cfg.fast_min_threshold), float(cfg.fast_threshold))
-        s_raw = s_raw[:, :W]
-        border = _border_mask(H, W, EDGE_MARGIN - 3)
-        s7 = jnp.where(border, s7n[:, :W], 0.0)
-        s20 = jnp.where(border, s20n[:, :W], 0.0)
-        blurred = blurred[:, :W]
-    else:
-        s_raw = fast_score_map(img_l, float(cfg.fast_min_threshold))
-        s20 = jnp.where(s_raw > cfg.fast_threshold, s_raw, 0.0)
-        border = _border_mask(H, W, EDGE_MARGIN - 3)
-        s7 = jnp.where(border, _nms3x3(s_raw), 0.0)
-        s20 = jnp.where(border, _nms3x3(s20), 0.0)
-        blurred = gaussian_blur7(img_l)
+    levels, in extract_orb."""
+    s_raw, s20, s7, blurred = _dense_stage(
+        img_l, float(cfg.fast_min_threshold), float(cfg.fast_threshold),
+        EDGE_MARGIN - 3)
     xs, ys, resp, valid = select_keypoints(
         s20, s7, quota, cfg.cell_size, cfg.cell_topk
     )
@@ -471,26 +459,19 @@ def extract_level(img_l, quota, cfg: OrbConfig, use_pallas: bool = False):
     return xs, ys, resp, valid, dxm[ys, xs], dym[ys, xs], blurred
 
 
-@functools.partial(jax.jit, static_argnames=("cfg", "with_pyramid",
-                                             "use_pallas"))
-def extract_orb(img, cfg: OrbConfig, with_pyramid: bool = False,
-                use_pallas: bool = None):
+@functools.partial(jax.jit, static_argnames=("cfg", "with_pyramid"))
+def extract_orb(img, cfg: OrbConfig, with_pyramid: bool = False):
     """Full-pyramid ORB extraction; one jit, all shapes static.
 
-    TPU-first structure: the dense stages run per level — on TPU as ONE
-    fused Pallas VMEM kernel per level (FAST score + dual-threshold NMS +
-    7x7 blur, ops/pallas_fast.py) — then every keypoint of every level
-    goes through ONE batched per-keypoint stage: a single superpatch
-    gather from the padded pyramid stacks followed by MXU hat-weight
-    contractions for the rotated-BRIEF bits and the oriented patch (no
-    per-level gather chains; measured several-fold faster than the
-    per-level layout).
+    The dense stages (FAST score + dual-threshold NMS + 7x7 blur) run per
+    level, then every keypoint of every level goes through ONE batched
+    per-keypoint stage: a single superpatch gather from the padded pyramid
+    stacks followed by hat-weight contractions for the rotated-BRIEF bits
+    and the oriented patch (no per-level gather chains).
 
     With with_pyramid=True additionally returns the (L, H, W) blurred
     pyramid stack (levels zero-padded to level-0 size) for KLT alignment.
     """
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
     pyr = build_pyramid(img, cfg)
     blur = [None] * cfg.n_levels
     H0, W0 = cfg.height, cfg.width
@@ -500,8 +481,7 @@ def extract_orb(img, cfg: OrbConfig, with_pyramid: bool = False,
         q = cfg.level_quotas[l]
         if q == 0:
             continue
-        xs, ys, resp, valid, fx, fy, blur[l] = extract_level(
-            pyr[l], q, cfg, use_pallas=use_pallas)
+        xs, ys, resp, valid, fx, fy, blur[l] = extract_level(pyr[l], q, cfg)
         # Pixel-center alignment: level pixel x maps to level-0 coordinate
         # (x + 0.5) * ratio - 0.5 with the *actual* per-axis resize ratio
         # (nominal 1.2^l drifts from the rounded level sizes).  Without this

@@ -4,7 +4,7 @@ Replaces the grid-bucket walks of ORBmatcher::SearchByProjection
 (/root/reference/include/ORBmatcher.h:47-63) with one dense masked Hamming
 problem per call: project every candidate landmark with the predicted pose,
 build the (L, N) gate mask (frustum, distance band, viewing angle, predicted
-scale, search radius), add it to the MXU Hamming matrix, and resolve matches
+scale, search radius), add it to the Hamming matrix, and resolve matches
 keypoint-wise so duplicates cannot occur.
 
 Gate constants mirror Tracking/ORBmatcher: distance band [0.8 min, 1.2 max],
@@ -113,63 +113,6 @@ def match_local_map(
     return lm_slot, ok, visible
 
 
-@functools.partial(jax.jit, static_argnames=("project_fn", "level_slack",
-                                             "interpret"))
-def match_local_map_pallas(
-    project_fn, R_cw, t_cw,
-    lm_pos, lm_normal, lm_min_dist, lm_max_dist, lm_desc, lm_mask,
-    f_uv, f_level, f_desc, f_valid,
-    width, height, th=1.0, nn_ratio=0.8, scale_factor=1.2, n_levels=8,
-    level_slack=1, max_dist=TH_HIGH, max_theta_deg=None, interpret=False,
-):
-    """match_local_map with the fused Pallas gated-NN kernel: identical
-    contract/outputs, but the (L, N) Hamming matrix and gate mask never
-    materialize in HBM (ops/pallas_matching.gated_nn_pallas)."""
-    from orb_slam3_study_kr_tpu.ops.pallas_matching import gated_nn_pallas
-
-    uv_proj, visible, pred, view_cos = project_landmarks(
-        project_fn, R_cw, t_cw, lm_pos, lm_normal, lm_min_dist, lm_max_dist,
-        lm_mask, width, height, scale_factor, n_levels, max_theta_deg,
-    )
-    base_r = jnp.where(view_cos > 0.998, 2.5, 4.0) * th
-    radius = base_r * scale_factor ** pred.astype(jnp.float32)
-
-    L = lm_pos.shape[0]
-    # The kernel packs (distance, index) into one exact f32 key, which
-    # requires L * KEY_GATE < 2^24 (pallas_matching.gated_nn_pallas); an
-    # unpadded or oversized landmark set falls back to the jnp path.
-    tile = 256 if (L % 256 == 0 and L * 512 < 2 ** 24) else None
-    if tile is None:  # unsupported landmark count: fall back to the jnp path
-        return match_local_map(
-            project_fn, R_cw, t_cw, lm_pos, lm_normal, lm_min_dist,
-            lm_max_dist, lm_desc, lm_mask, f_uv, f_level, f_desc, f_valid,
-            width, height, th, nn_ratio, scale_factor, n_levels,
-            level_slack, max_dist, max_theta_deg)
-    best, second, lm_slot = gated_nn_pallas(
-        f_desc, f_uv, f_level, f_valid,
-        lm_desc, uv_proj, radius, pred, visible,
-        tile_t=tile, level_slack=level_slack, interpret=interpret,
-    )
-    ok = (best <= max_dist) & (best < nn_ratio * second) & f_valid
-    n = f_uv.shape[0]
-    key = jnp.where(
-        ok,
-        best * (n + 1) + jnp.arange(n, dtype=best.dtype),
-        BIG,
-    )
-    min_key = jnp.full((L,), BIG, key.dtype).at[lm_slot].min(key)
-    ok = ok & (key <= min_key[lm_slot])
-    return lm_slot, ok, visible
-
-
-def match_local_map_auto(*args, **kw):
-    """Dispatch the local-map matcher: fused Pallas kernel on TPU, the
-    plain-XLA matrix path elsewhere (CPU tests, interpret-free)."""
-    if jax.default_backend() == "tpu":
-        return match_local_map_pallas(*args, **kw)
-    return match_local_map(*args, **kw)
-
-
 @functools.partial(jax.jit, static_argnames=(
     "project_fn", "n_levels", "level_slack"))
 def match_local_map_batch(
@@ -206,8 +149,8 @@ def match_by_descriptor(
 ):
     """Unconstrained descriptor matching with ratio + mutual check — the
     dense stand-in for SearchByBoW (the BoW feature-vector constraint is an
-    acceleration structure, not a behavior; on the MXU the full matrix is
-    cheap).  Used for reference-keyframe tracking and relocalization."""
+    acceleration structure, not a behavior; as one matmul the full matrix
+    is cheap).  Used for reference-keyframe tracking and relocalization."""
     dist = hamming_matrix(q_desc, t_desc)
     mask = q_valid[:, None] & t_valid[None, :]
     d = jnp.where(mask, dist, BIG)

@@ -140,7 +140,7 @@ def match_and_triangulate_batch(
     match_and_triangulate over the neighbor axis (leading axis of the
     *2s arrays), sharing the kf-side arrays.  One dispatch + one fetch
     replaces a per-neighbor program chain — the per-neighbor matmuls
-    batch onto the MXU instead of serializing.  Pad unused neighbor slots
+    run as one batched product instead of serializing.  Pad unused neighbor slots
     with free2=False rows (they produce no matches)."""
 
     def one(R2, t2, uv2, b2, level2, desc2, free2, angle2):

@@ -1,7 +1,7 @@
 """Multi-chip scale-out (new capability — the reference is single-process,
 SURVEY.md section 2.4): keyframe/landmark blocks sharded over a
 jax.sharding Mesh, with the reduced camera system of bundle adjustment
-psum-reduced over ICI.
+psum-reduced across the cards.
 """
 
 from orb_slam3_study_kr_tpu.parallel.dist_ba import (

@@ -1,7 +1,7 @@
 """Distributed bundle adjustment over a device mesh.
 
-The TPU-native replacement for what the reference cannot do at all (its BA
-is one g2o solve on one thread).  Decomposition, following the standard
+What the reference cannot do at all (its BA is one g2o solve on one
+thread), over the cards of one host.  Decomposition, following the standard
 distributed-Schur structure (BASELINE.json north star):
 
 - landmarks (and their observations) are sharded across devices along a
@@ -9,7 +9,7 @@ distributed-Schur structure (BASELINE.json north star):
   one device, so the 3x3 elimination blocks are device-local;
 - camera poses are replicated;
 - each device builds its partial reduced camera system from its
-  observations and the partials are combined with psum over ICI;
+  observations and the partials are combined with psum;
 - landmark updates back-substitute locally with zero communication.
 
 Two assemblies (matching solvers/local_ba.bundle_adjust):
@@ -30,7 +30,6 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-from jax.experimental.shard_map import shard_map
 
 from orb_slam3_study_kr_tpu.lie.se3 import exp_se3, se3_compose
 from orb_slam3_study_kr_tpu.solvers import robust
@@ -100,11 +99,11 @@ def _build_dist_solver(mesh, project_fn, project_jac_fn, n_iters,
         in_specs += [shd, rep]
 
     @functools.partial(
-        shard_map,
+        jax.shard_map,
         mesh=mesh,
         in_specs=tuple(in_specs),
         out_specs=(rep, rep, shd, shd),
-        check_rep=False,
+        check_vma=False,
     )
     def solve(R_all, t_all, fixed, X_blk, lmm_blk, op, ol, ouv, olev, om,
               our=None, bf=None):

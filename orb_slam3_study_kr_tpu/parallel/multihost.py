@@ -1,13 +1,13 @@
 """Multi-host (multi-process) runtime for the distributed solvers.
 
 The reference has no multi-node capability at all (SURVEY.md section 2.4);
-this is the designed-new part of the TPU framework: each host joins a
+this is the designed-new part of the engine: each host joins a
 `jax.distributed` cluster, the global device mesh spans every process, and
 the landmark-sharded Schur BA (parallel/dist_ba.py) runs unchanged as one
-SPMD program — shard_map + psum compile to collectives over ICI within a
-slice and DCN across slices.  On this box the same code path is exercised
-with N local CPU processes x M virtual devices per process
-(tests/test_multihost.py, SURVEY.md section 4's multi-host test recipe).
+SPMD program — shard_map + psum compile to collectives across processes.
+The tests exercise the same code path with N local CPU processes x M
+virtual devices per process (tests/test_multihost.py, SURVEY.md section
+4's multi-host test recipe).
 
 Data model: SLAM map state is host-replicated numpy (every process tracks
 the same session deterministically or receives the same solve inputs);

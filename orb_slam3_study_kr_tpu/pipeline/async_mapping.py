@@ -3,7 +3,7 @@
 The reference runs LocalMapping and LoopClosing on dedicated threads so
 tracking never waits for triangulation/BA/loop work (System.cc:195-214);
 keyframes are handed over through a queue (LocalMapping::InsertKeyFrame,
-LocalMapping.cc:292-297).  This module is the TPU-native equivalent: one
+LocalMapping.cc:292-297).  This module is the equivalent here: one
 worker thread drains a keyframe queue, running the mapper's stages and
 the loop-closing cascade per keyframe.  Device work was already
 asynchronous — what the worker buys is that the FRAME path no longer

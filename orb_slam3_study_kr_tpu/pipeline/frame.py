@@ -7,9 +7,8 @@ The per-keypoint arrays are LAZY: a tracked (non-keyframe) frame never
 needs the extractor's outputs on the host — the fused tracking rounds
 consume the device-resident mirrors — so the (single, batched) device->
 host fetch is deferred until something actually reads a host array
-(keyframe creation, initialization, relocalization).  On a remote-attached
-chip that fetch costs a full link round trip per frame; deferring it
-removes it from the steady-state frame path entirely.
+(keyframe creation, initialization, relocalization).  Deferring it
+removes a device sync from the steady-state frame path entirely.
 """
 
 import numpy as np

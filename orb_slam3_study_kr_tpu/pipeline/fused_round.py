@@ -1,12 +1,11 @@
 """Fused track-local-map rounds: match + KLT verify + bind + pose-opt —
 N complete rounds in ONE jitted program.
 
-The split pipeline pays a host sync (full link round trip on a
-remote-attached chip) after each stage; a tracking frame runs 2-3 rounds
-of (projection match -> photometric verify -> pose GN), i.e. ~9 sync
-boundaries.  This program keeps the WHOLE round sequence on device: the
-only host exchange is one argument upload batch and one fetched result
-cluster for all rounds together.  Between rounds the program applies the
+The split pipeline pays a host sync after each stage; a tracking frame
+runs 2-3 rounds of (projection match -> photometric verify -> pose GN),
+i.e. ~9 sync boundaries.  This program keeps the WHOLE round sequence on
+device: the only host exchange is one argument upload batch and one
+fetched result cluster for all rounds together.  Between rounds the program applies the
 same host-side bookkeeping the split path does:
 
 - landmarks bound in an earlier round leave the candidate block (the
@@ -99,7 +98,7 @@ def _flow_prologue(flow, blk_pos, blk_patch, kp_lm, kp_lm_pos, lm_mask,
     return kp_lm, kp_lm_pos, lm_mask, (uv_ref, distinct, good), good
 
 
-def _round(matcher, project_fn, project_jac_fn, R, t,
+def _round(project_fn, project_jac_fn, R, t,
            lm_pos, lm_normal, lm_min_dist, lm_max_dist, lm_desc, lm_mask,
            lm_gid, lm_patch,
            kp_lm, kp_lm_pos,
@@ -120,7 +119,7 @@ def _round(matcher, project_fn, project_jac_fn, R, t,
     alignment is NOT distinctive (alias-ambiguous on self-similar
     texture) enter at that reduced weight — they still anchor the solve
     but can no longer outvote the distinctive set into an aliased basin."""
-    lm_slot, ok, visible = matcher(
+    lm_slot, ok, visible = track_match.match_local_map(
         project_fn, R, t,
         lm_pos, lm_normal, lm_min_dist, lm_max_dist, lm_desc, lm_mask,
         f_uv, f_level, f_desc, f_valid,
@@ -185,7 +184,7 @@ def _round(matcher, project_fn, project_jac_fn, R, t,
 
 @functools.partial(jax.jit, static_argnames=(
     "project_fn", "project_jac_fn", "undistort_fn", "n_levels",
-    "level_slack", "wide_fov", "use_klt", "use_pallas", "n_rounds",
+    "level_slack", "wide_fov", "use_klt", "n_rounds",
     "move_obs"))
 def fused_track_rounds(
     project_fn, project_jac_fn, undistort_fn,
@@ -199,7 +198,7 @@ def fused_track_rounds(
     th=1.0, nn_ratio=0.8, scale_factor=1.2, n_levels=8, level_slack=1,
     max_theta_deg=None,
     klt_zncc_min=0.5, klt_max_shift=3.0, klt_distinct_min=0.15,
-    wide_fov=False, use_klt=True, use_pallas=False,
+    wide_fov=False, use_klt=True,
     n_rounds=1, move_obs=True,
     ur_obs=None, bf=None,
     flow=None, flow_radius=40.0,
@@ -218,8 +217,6 @@ def fused_track_rounds(
     frame coordinate arrays carry every accepted KLT observation move,
     ``moved`` marks the keypoints that moved, and n_flow counts
     flow-anchor bindings."""
-    matcher = (track_match.match_local_map_pallas if use_pallas
-               else track_match.match_local_map)
     visible_r1 = None
     inl = jnp.zeros(f_uv.shape[0], bool)
     R, t = R0, t0
@@ -244,7 +241,7 @@ def fused_track_rounds(
             moved_any = moved_any | move
 
     for _ in range(n_rounds):
-        lm_slot, ok, visible = matcher(
+        lm_slot, ok, visible = track_match.match_local_map(
             project_fn, R, t,
             lm_pos, lm_normal, lm_min_dist, lm_max_dist, lm_desc, lm_mask,
             f_uv, f_level, f_desc, f_valid,
@@ -305,7 +302,7 @@ def fused_track_rounds(
 
 @functools.partial(jax.jit, static_argnames=(
     "project_fn", "project_jac_fn", "undistort_fn", "n_levels",
-    "wide_fov", "use_klt", "use_pallas", "n_local_rounds", "move_obs"))
+    "wide_fov", "use_klt", "n_local_rounds", "move_obs"))
 def fused_track_frame(
     project_fn, project_jac_fn, undistort_fn,
     R0, t0,
@@ -322,7 +319,7 @@ def fused_track_frame(
     wide_slack=7, local_slack=1,
     max_theta_deg=None,
     klt_zncc_min=0.5, klt_max_shift=3.0, klt_distinct_min=0.15,
-    wide_fov=False, use_klt=True, use_pallas=False,
+    wide_fov=False, use_klt=True,
     n_local_rounds=2, move_obs=True,
     ur_obs=None, bf=None,
     flow=None, flow_radius=40.0,
@@ -354,8 +351,6 @@ def fused_track_frame(
     result — a one-frame lag in local-map selection; image continuity
     makes the sets near-identical, and the inlier gate on the fetch
     routes genuinely changed frames to the split fallback."""
-    matcher = (track_match.match_local_map_pallas if use_pallas
-               else track_match.match_local_map)
     R, t = R0, t0
     ur = ur_obs
     moved_any = jnp.zeros(f_uv.shape[0], bool)
@@ -420,7 +415,7 @@ def fused_track_frame(
             f_uv_raw, ur, kp_w, gate=None):
         gates = ((lm_normal_w, lm_min_w, lm_max_w) if wide
                  else (lm_normal, lm_min_dist, lm_max_dist))
-        return _round(matcher, project_fn, project_jac_fn, Rc, tc,
+        return _round(project_fn, project_jac_fn, Rc, tc,
                       lm_pos, *gates, lm_desc, mask, lm_gid, lm_patch,
                       kp_lm, kp_lm_pos,
                       f_uv, f_level, f_desc, f_valid, f_uv_raw, f_angle,

@@ -33,7 +33,7 @@ import numpy as np
 
 from orb_slam3_study_kr_tpu.bow.database import KeyframeDatabase
 from orb_slam3_study_kr_tpu.ops.track_match import (match_by_descriptor,
-                                                    match_local_map_auto)
+                                                    match_local_map)
 from orb_slam3_study_kr_tpu.slam_map.map_state import NO_LM, MapState
 from orb_slam3_study_kr_tpu.solvers.pose_graph import (optimize_pose_graph,
                                                        relative_sim3)
@@ -159,7 +159,7 @@ class LoopCloser:
         mask = np.zeros(MAX_WINDOW_LMS, np.float32)
         mask[:n] = 1.0
         with m.lock:
-            out = match_local_map_auto(
+            out = match_local_map(
                 self.cfg.project_fn,
                 jnp.asarray(R_s, jnp.float32),
                 jnp.asarray(np.asarray(t_s, np.float32) / np.float32(s_s)),

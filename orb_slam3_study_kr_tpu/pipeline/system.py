@@ -596,11 +596,10 @@ class SlamSystem:
     def upload_image(self, img):
         """Asynchronously upload a camera image and return its device
         handle, accepted by every track_* entry in place of the host
-        array.  Call during IO/decode time of the NEXT frame: over a
-        remote-attached chip the H2D transfer (~tens of ms for a VGA
-        uint8 frame) then overlaps host work instead of serializing
-        ahead of the frame's extraction program.  Images keep their
-        native dtype (uint8 preferred — 4x less link traffic)."""
+        array.  Call during IO/decode time of the NEXT frame: the H2D
+        transfer then overlaps host work instead of serializing ahead
+        of the frame's extraction program.  Images keep their native
+        dtype (uint8 preferred — 4x less transfer than float32)."""
         if isinstance(img, jax.Array):
             return img
         img = np.asarray(img)

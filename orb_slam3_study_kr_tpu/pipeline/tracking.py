@@ -562,6 +562,8 @@ class MonoTracker:
             if n_inliers is not None and n_inliers >= cfg.min_local_inliers:
                 ok = True
                 fused_frame = True
+                self.stats["fused_frame"] = (
+                    self.stats.get("fused_frame", 0) + 1)
             else:
                 if n_inliers is not None:
                     self.stats["fused_frame_fallback"] = (
@@ -719,7 +721,7 @@ class MonoTracker:
                 normal = _pad_rows(m.lm_normal[lm_ids], L)
                 min_d = _pad_rows(m.lm_min_dist[lm_ids], L)
                 max_d = _pad_rows(m.lm_max_dist[lm_ids], L)
-        lm_slot, ok, visible = track_match.match_local_map_auto(
+        lm_slot, ok, visible = track_match.match_local_map(
             cfg.project_fn, jnp.asarray(R_pred), jnp.asarray(t_pred),
             jnp.asarray(pos), jnp.asarray(normal), jnp.asarray(min_d),
             jnp.asarray(max_d), jnp.asarray(desc), jnp.asarray(mask),
@@ -1202,8 +1204,6 @@ class MonoTracker:
             R_pred, t_pred = self._predict_pose()
         use_klt = cfg.klt_refine and frame.pyr is not None
         L = cfg.local_map_size
-        use_pallas = (jax.default_backend() == "tpu"
-                      and L % 256 == 0 and L * 512 < 2 ** 24)
         with m.lock:
             kp, lms = lf.bound_obs()
             lm_ids = np.unique(lms)
@@ -1251,8 +1251,8 @@ class MonoTracker:
                 # (every matcher gates on f_valid in-program), so the
                 # validity AND is consulted only when the host array is
                 # already materialized — touching lf.valid on a lazy frame
-                # would trigger the deferred extractor fetch (~1 RTT) on
-                # EVERY tracked frame.
+                # would trigger the deferred extractor fetch (a device
+                # sync) on EVERY tracked frame.
                 bound = lf.kp_lm != NO_LM
                 lf_valid = lf._host.get("valid")
                 if lf_valid is not None:
@@ -1293,7 +1293,7 @@ class MonoTracker:
                 klt_max_shift=cfg.klt_max_shift,
                 klt_distinct_min=cfg.klt_distinct_min,
                 wide_fov=cfg.camera_model == "kb8",
-                use_klt=use_klt, use_pallas=use_pallas,
+                use_klt=use_klt,
                 move_obs=cfg.klt_move_obs,
                 flow=flow, flow_radius=cfg.flow_anchor_radius,
                 R_last=(jnp.asarray(lf.R_cw) if flow is not None else None),
@@ -1342,10 +1342,7 @@ class MonoTracker:
         from orb_slam3_study_kr_tpu.pipeline.fused_round import (
             fused_track_rounds)
         cfg, m = self.cfg, self.map
-        L = blk_mask.shape[0]
         use_klt = cfg.klt_refine and frame.pyr is not None
-        use_pallas = (jax.default_backend() == "tpu"
-                      and L % 256 == 0 and L * 512 < 2 ** 24)
         stereo_kw = {}
         if cfg.bf > 0 and frame.u_r is not None:
             stereo_kw = dict(ur_obs=jnp.asarray(frame.u_r),
@@ -1378,7 +1375,7 @@ class MonoTracker:
                 klt_max_shift=cfg.klt_max_shift,
                 klt_distinct_min=cfg.klt_distinct_min,
                 wide_fov=cfg.camera_model == "kb8",
-                use_klt=use_klt, use_pallas=use_pallas,
+                use_klt=use_klt,
                 n_rounds=n_rounds, move_obs=cfg.klt_move_obs,
                 flow=flow, flow_radius=cfg.flow_anchor_radius,
                 **stereo_kw,

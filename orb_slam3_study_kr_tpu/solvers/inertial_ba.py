@@ -9,7 +9,7 @@ mode a single shared bias vertex with priorG/priorA prior edges and no
 random-walk edges; Huber sqrt(16.92) on the 9-D preintegration edges,
 :543).
 
-TPU formulation: each keyframe is a 15-dof state [phi, dp, dv, dbg, dba]
+Formulation: each keyframe is a 15-dof state [phi, dp, dv, dbg, dba]
 in one dense (K*15, K*15) reduced system; landmarks are eliminated with a
 batched Schur complement exactly like the visual solver (solvers/
 local_ba.py), but the correction only lands on the pose dims [0:6] of each

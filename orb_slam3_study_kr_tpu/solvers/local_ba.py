@@ -3,15 +3,14 @@ complement over landmarks.
 
 Replaces g2o's BlockSolver_6_3 + OptimizationAlgorithmLevenberg as used by
 Optimizer::LocalBundleAdjustment and GlobalBundleAdjustemnt
-(/root/reference/src/Optimizer.cc:1116, :61).  The TPU formulation:
+(/root/reference/src/Optimizer.cc:1116, :61).  The formulation here:
 
 - observations are flat index arrays (pose_idx, landmark_idx, uv, level,
   mask) — the bipartite graph as COO, not pointers;
 - residuals and the closed-form 2x6 / 2x3 Jacobians are one batched sweep;
 - per-pose 6x6 and per-landmark 3x3 blocks come from segment-sums;
 - landmark elimination inverts (M, 3, 3) blocks in batch, and the reduced
-  camera system S = Hpp - W Hll^-1 W^T is assembled with one big einsum that
-  lands on the MXU;
+  camera system S = Hpp - W Hll^-1 W^T is assembled with one big einsum;
 - the (6K, 6K) reduced solve is a dense Cholesky (K is a local-BA window);
 - LM damping with accept/reject lives in the lax.scan carry.
 
@@ -123,13 +122,13 @@ def bundle_adjust(
     and the 3-dof chi2/Huber gate 7.815.
 
     assembly="dense" materializes the (K, M, 6, 3) cross block and builds
-    the reduced camera system with one MXU einsum — fastest for local-BA
+    the reduced camera system with one einsum — fastest for local-BA
     windows.  assembly="pcg" never forms the cross block: the reduced
     system is solved matrix-free with block-Jacobi-preconditioned conjugate
     gradients whose matvec is two segment-sum sweeps over the observations
     (O(O) work, O(K + M + O) memory) — this is what lets global BA run on
     arbitrarily large maps (the reference's g2o uses sparse Cholesky;
-    iterative Schur is the TPU-native equivalent)."""
+    iterative Schur is the dense-array equivalent)."""
     K = R_cw.shape[0]
     M = X.shape[0]
     inv_sigma2 = robust.octave_inv_sigma2(obs_level)
@@ -200,7 +199,7 @@ def bundle_adjust(
         Hll_inv = Hll_inv * lm_mask[:, None, None]
 
         if assembly == "dense":
-            # Dense cross-block W (K, M, 6, 3); Schur product on the MXU.
+            # Dense cross-block W (K, M, 6, 3); Schur product as one einsum.
             W = jnp.zeros((K, M, 6, 3), R_cw.dtype).at[obs_pose, obs_lm].add(E)
             Wi = jnp.einsum("kmab,mbc->kmac", W, Hll_inv)
             S = -jnp.einsum("kmac,lmbc->kalb", Wi, W).reshape(6 * K, 6 * K)

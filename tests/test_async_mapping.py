@@ -1,7 +1,7 @@
 """Background mapping/loop worker (pipeline/async_mapping.py).
 
 The reference runs LocalMapping/LoopClosing on dedicated threads
-(System.cc:195-214); these tests check the TPU-native worker: keyframe
+(System.cc:195-214); these tests check the background worker: keyframe
 mapping off the frame path, the map-update lock keeping both threads
 consistent, flush semantics, and end-to-end trajectory quality with the
 worker enabled.

@@ -4,7 +4,6 @@ Oracle style follows SURVEY.md section 4: golden-value kernel checks
 (Hamming vs numpy popcount) plus behavioral checks (detection near true
 corners, descriptor stability under rotation, cross-view matching)."""
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -148,46 +147,16 @@ def test_extract_orb_jit_stability(scene_and_frames):
     np.testing.assert_array_equal(np.asarray(a.desc), np.asarray(b.desc))
 
 
-def test_pallas_fast_kernel_matches_jnp_path():
-    """ops/pallas_fast.fast_nms_blur_pallas (interpret mode) must match
-    the jnp dense stage bit-for-bit on the interior (borders differ by
-    design: clamp vs roll — both masked by EDGE_MARGIN)."""
-    import jax.numpy as jnp
-    from orb_slam3_study_kr_tpu.ops import orb
-    from orb_slam3_study_kr_tpu.ops.pallas_fast import fast_nms_blur_pallas
-
-    rng = np.random.default_rng(2)
-    img = rng.integers(0, 255, (150, 256)).astype(np.float32)
-    s_raw_p, s20_p, s7_p, blur_p = [
-        np.asarray(x) for x in fast_nms_blur_pallas(
-            jnp.asarray(img), 7.0, 20.0, interpret=True)]
-    s_raw = np.asarray(orb.fast_score_map(jnp.asarray(img), 7.0))
-    s20 = np.where(s_raw > 20.0, s_raw, 0.0)
-    c = np.s_[8:-8, 8:-8]
-    assert np.array_equal(s_raw_p[c], s_raw[c])
-    assert np.array_equal(s20_p[c],
-                          np.asarray(orb._nms3x3(jnp.asarray(s20)))[c])
-    assert np.array_equal(s7_p[c],
-                          np.asarray(orb._nms3x3(jnp.asarray(s_raw)))[c])
-    blur = np.asarray(orb.gaussian_blur7(jnp.asarray(img)))
-    assert np.abs(blur_p[c] - blur[c]).max() < 1e-3
-
-
 def test_extract_orb_pallas_flag_equivalence():
-    """extract_orb(use_pallas=True, interpret path unavailable on CPU) —
-    assert the flag plumbs through by comparing the False path against
-    itself and checking the pallas kernel is only required on TPU."""
-    import jax
-    import jax.numpy as jnp
-    from orb_slam3_study_kr_tpu.ops import orb
-
+    """Plain small-config extract_orb: a 3-level pyramid at 160x128 finds
+    keypoints, keeps them inside the image and returns fixed shapes."""
     cfg = orb.OrbConfig(n_features=200, n_levels=3, height=128, width=160)
     img = jnp.asarray(np.random.default_rng(0).integers(
         0, 255, (128, 160)).astype(np.float32))
-    f = orb.extract_orb(img, cfg, use_pallas=False)
-    assert int(np.asarray(f.valid).sum()) > 50
-    if jax.default_backend() == "tpu":
-        fp = orb.extract_orb(img, cfg, use_pallas=True)
-        sel = np.asarray(f.valid) & np.asarray(fp.valid)
-        assert np.allclose(np.asarray(f.uv)[sel], np.asarray(fp.uv)[sel],
-                           atol=0.75)
+    f = orb.extract_orb(img, cfg)
+    valid = np.asarray(f.valid)
+    assert valid.shape == (cfg.total_slots,)
+    assert np.asarray(f.desc).shape == (cfg.total_slots, 256)
+    assert int(valid.sum()) > 50
+    uv = np.asarray(f.uv)[valid]
+    assert (uv >= 0).all() and (uv[:, 0] < 160).all() and (uv[:, 1] < 128).all()
